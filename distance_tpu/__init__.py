@@ -1,14 +1,14 @@
-"""distance_tpu — a TPU-native pairwise genetic-distance engine.
+"""distance_tpu — a pairwise genetic-distance engine on JAX accelerators.
 
 A from-scratch reimplementation of the capabilities of the reference Rust CLI
-``distance`` (benjamincjackson/distance) designed for TPU hardware:
+``distance`` (benjamincjackson/distance) built on JAX/XLA:
 
 * Sequences are packed with the Paradis 8-bit nucleotide encoding into a
-  ``(n_seqs, L)`` uint8 matrix resident in HBM.
+  ``(n_seqs, L)`` uint8 matrix resident in device memory.
 * Every distance measure is decomposed into per-pair *integer counters* that
   are bilinear forms over small per-site feature channels, so the O(n^2 * L)
-  pairwise site sweep runs as a batched GEMM on the MXU (exact {-1,0,1}
-  features, f32 accumulation => exact integers).
+  pairwise site sweep runs as a batched int8 GEMM (exact {-1,0,1} features,
+  int32 accumulation => exact integers).
 * The closed-form measure transforms (jc69/k80/tn93) are finalized in f64 on
   the host, replaying the reference's exact expression shapes for bit-for-bit
   TSV parity (reference: /root/reference/src/measures.rs).

@@ -1,42 +1,76 @@
 """Build-on-demand ctypes loader for the native host runtime.
 
-Compiles native.c into a shared library on first use (cached next to the
-source).  If no C toolchain is available the callers fall back to pure
-Python paths — the native library is a performance component, not a
-correctness requirement.
+Compiles native.c into a shared library on first use, cached next to the
+source under a name that carries its build key: a hash of the source,
+the compiler flags and the host CPU.  The library is built with
+``-march=native``, so a copy built on another host (or from another
+source) is never loaded; a changed key builds a fresh library.  If no C
+toolchain is available the callers fall back to pure Python paths — the
+native library is a performance component, not a correctness
+requirement.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
-import sysconfig
 import threading
 from typing import Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "native.c")
-_SO = os.path.join(_HERE, "libdistance_native.so")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
-def _build() -> bool:
+# -ffp-contract=off: Rust never contracts mul+add into FMA; allowing
+# contraction changes f64 results (e.g. jc69 at p=0.75) and breaks
+# bit-for-bit parity.
+_CFLAGS = ["-O3", "-march=native", "-ffp-contract=off", "-shared", "-fPIC"]
+
+
+def _host_cpu() -> str:
+    """The host CPU's model name and feature flags (what -march=native
+    compiles for), or the machine type where /proc/cpuinfo is absent."""
+    keep = []
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if not line.strip():
+                    break  # first processor block only
+                key = line.split(":", 1)[0].strip()
+                if key in ("vendor_id", "model name", "flags", "Features"):
+                    keep.append(line.strip())
+    except OSError:
+        pass
+    return "\n".join(keep) or platform.machine()
+
+
+def _build_key() -> str:
+    h = hashlib.sha256()
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join([os.environ.get("CC", "cc")] + _CFLAGS).encode())
+    h.update(_host_cpu().encode())
+    return h.hexdigest()[:16]
+
+
+def _lib_path(key: str) -> str:
+    return os.path.join(_HERE, f"libdistance_native.{key}.so")
+
+
+def _build(so: str) -> bool:
     cc = os.environ.get("CC", "cc")
     # Link to a temp path, then atomically rename over the cached .so:
     # a process that already dlopened the old library keeps its mapping
     # (same-path relink would truncate the mapped inode under it).
-    tmp = _SO + f".build.{os.getpid()}"
-    # -ffp-contract=off: Rust never contracts mul+add into FMA; allowing
-    # contraction changes f64 results (e.g. jc69 at p=0.75) and breaks
-    # bit-for-bit parity.
-    cmd = [
-        cc, "-O3", "-march=native", "-ffp-contract=off",
-        "-shared", "-fPIC", _SRC, "-o", tmp, "-lm",
-    ]
+    tmp = so + f".build.{os.getpid()}"
+    cmd = [cc] + _CFLAGS + [_SRC, "-o", tmp, "-lm"]
     try:
         try:
             subprocess.run(cmd, check=True, capture_output=True)
@@ -47,7 +81,7 @@ def _build() -> bool:
                 subprocess.run(cmd, check=True, capture_output=True)
             except (OSError, subprocess.CalledProcessError, ValueError):
                 return False
-        os.replace(tmp, _SO)
+        os.replace(tmp, so)
         return True
     finally:
         try:
@@ -153,13 +187,11 @@ def get_lib() -> Optional[ctypes.CDLL]:
         _tried = True
         if os.environ.get("DISTANCE_TPU_NO_NATIVE"):
             return None
-        needs_build = (not os.path.exists(_SO)) or (
-            os.path.getmtime(_SO) < os.path.getmtime(_SRC)
-        )
-        if needs_build and not _build():
+        so = _lib_path(_build_key())
+        if not os.path.exists(so) and not _build(so):
             return None
         try:
-            _lib = _bind(ctypes.CDLL(_SO))
+            _lib = _bind(ctypes.CDLL(so))
         except OSError:
             _lib = None
     return _lib

@@ -1,6 +1,6 @@
 """FASTA I/O: parse, validate, and pack alignments into uint8 code matrices.
 
-TPU-native counterpart of the reference's record-oriented I/O layer
+Host-side counterpart of the reference's record-oriented I/O layer
 (/root/reference/src/fastaio.rs).  Instead of a Vec of per-record byte
 vectors, an alignment is packed into one contiguous ``(n_seqs, L)`` uint8
 matrix ready for device upload; ids/descriptions stay host-side.
@@ -764,9 +764,8 @@ def _stream_records_native(
     order, so output bytes and mid-stream error semantics are identical
     to the serial path (a failing piece replays through the Python
     per-record path AT ITS ORDERED POSITION, after every earlier
-    record has been yielded).  The 1M-seq design-point run spent
-    324.5 s in stream-parse-wait on the serial path (BASELINE.md);
-    the reference's analog is its dedicated reader thread
+    record has been yielded).  The reference's analog is its
+    dedicated reader thread
     (/root/reference/src/lib.rs:288-306)."""
     workers = _stream_parse_workers()
     if workers <= 1:

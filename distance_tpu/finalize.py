@@ -1,6 +1,6 @@
 """Exact f64 finalization of device counters into distances.
 
-The TPU kernels produce exact integer counters per pair; this module
+The device GEMMs produce exact integer counters per pair; this module
 replays the reference's f64 closed forms (/root/reference/src/measures.rs)
 over those counters.  The native path (C, glibc libm) is used when
 available; the Python fallback calls ``math.log`` per element (also glibc).

@@ -2,8 +2,8 @@
 
 Vectorized NumPy implementations of the six measures with semantics matching
 /root/reference/src/measures.rs exactly.  These serve as the golden oracle
-for the TPU kernels and as the compute path for tiny inputs; the production
-path computes the same integer counters on the MXU (see ops/) and finalizes
+for the device GEMMs and as the compute path for tiny inputs; the production
+path computes the same integer counters on the device (see ops/) and finalizes
 with the identical f64 expressions below.
 
 Every finalization uses ``math.log`` / ``math.sqrt`` (glibc libm — the same
@@ -23,7 +23,7 @@ FloatInt = Union[int, float]
 MEASURES = ("n", "n_high", "raw", "jc69", "k80", "tn93")
 
 # Which integer counters each measure consumes (see ops/features.py for the
-# bilinear decompositions that compute them on the MXU).
+# bilinear decompositions that compute them as GEMMs).
 MEASURE_COUNTERS: Dict[str, Tuple[str, ...]] = {
     "n": ("diff",),
     "n_high": ("diff",),
@@ -128,7 +128,7 @@ def tn93(
 
 
 # ---------------------------------------------------------------------------
-# f64 finalization (shared by oracle and TPU counter path)
+# f64 finalization (shared by oracle and device counter path)
 # ---------------------------------------------------------------------------
 
 def _ln(x: float) -> float:

@@ -1,4 +1,4 @@
-"""TPU compute kernels for the pairwise counter sweep."""
+"""Device compute for the pairwise counter sweep."""
 
 from distance_tpu.ops.features import CounterPlan, get_plan
 from distance_tpu.ops.pairwise_xla import counters_xla

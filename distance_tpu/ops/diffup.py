@@ -79,8 +79,8 @@ def _build_fn(rows_pad: int, l_pad: int, cap: int, sharded: bool = False):
         base = jnp.broadcast_to(ref, (rows_pad, l_pad)).reshape(-1)
         # padding entries carry strictly-increasing out-of-bounds indices
         # and are dropped; the sorted+unique promise holds for the whole
-        # index vector and is what makes the TPU scatter fast (measured
-        # 143 ms -> 3.9 ms per 512 x 30k batch without/with the hints)
+        # index vector and lets XLA emit a scatter without conflict
+        # handling
         out = base.at[idx].set(
             vals, mode="drop", indices_are_sorted=True, unique_indices=True
         )

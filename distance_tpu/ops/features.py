@@ -1,6 +1,6 @@
 """Bilinear decomposition of the per-site distance predicates.
 
-This is the core TPU-native idea of the engine.  Every integer counter that
+This is the core idea of the engine.  Every integer counter that
 the six measures consume is a sum over alignment sites of a 0/1 predicate
 P(x_i, y_i) of the two Paradis codes.  Each predicate here is decomposed as
 
@@ -13,10 +13,10 @@ over sites turns the whole pairwise sweep into a GEMM:
                   = sum_{i,k} F[s, i, k] * G[t, i, k]
                   = (F reshaped (n, L*r)) @ (G reshaped (n, L*r)).T
 
-which runs on the MXU.  Features are exactly representable in bfloat16 and
-partial sums stay below 2^24 for any realistic alignment width, so the f32
-MXU accumulation yields **exact** integers — bit-for-bit parity with the
-reference's byte loop (/root/reference/src/measures.rs) by construction.
+which runs on the tensor cores as an int8 x int8 -> int32 GEMM.  Features
+are in {-1, 0, 1}, so int32 accumulation yields **exact** integers —
+bit-for-bit parity with the reference's byte loop (its
+src/measures.rs) by construction.
 
 Counter decompositions (bA/bG/bC/bT = candidacy bits, kn = known bit,
 eX = exact-base indicator = bX & kn, valid = code != 0):
@@ -49,7 +49,7 @@ eX = exact-base indicator = bX & kn, valid = code != 0):
 
 Each channel is specified as a (sign, primitive) pair, evaluated either
 over ``np.arange(256)`` to produce host LUTs or symbolically over a device
-array of codes (bitwise VPU ops — no gathers on the TPU hot path).  Both
+array of codes (elementwise bit ops — no gathers on the hot path).  Both
 evaluations share one definition, so they agree by construction.
 
 Shared-channel plans (k80, tn93).  Each counter above is individually
@@ -69,7 +69,7 @@ gives, writing O_F for the per-pair GEMM of channel F@F:
 
 so k80 = {same, ts, tv} needs 6 channels instead of 4+4+2 = 10, and tn93
 = {same, kk, p1, p2} needs 5 instead of 4+1+2+2 = 9.  Every factor still
-takes values in {-1, 0, 1} (int8-exact on the MXU) and every numerator is
+takes values in {-1, 0, 1} (int8-exact) and every numerator is
 even per site, so integer division by 2 after accumulation is exact —
 including under site-sharding ("sp" psum).  These counts are optimal:
 

@@ -23,9 +23,9 @@ strip — exactness is never compromised, narrow packing is purely a
 transfer-size optimization (2-4x on top of wide).
 
 Packing happens in-graph on device (jnp); unpacking is vectorized NumPy
-on host.  Packed words travel as SIGNED ints (some device transports
-cannot move unsigned arrays).  For L >= 2^16 the engine transfers raw
-int32 counters.
+on host.  Packed words travel as SIGNED ints and are viewed back as
+unsigned on the host.  For L >= 2^16 the engine transfers raw int32
+counters.
 """
 
 from __future__ import annotations
@@ -50,8 +50,7 @@ def pack_device(measure: str, counters, xp):
     """(G, m, n) int32 array (numpy or jax) -> packed array (P, m, n).
 
     Returns int16 for the single-counter measures, int32 otherwise — the
-    packed words are bit patterns (signed on the wire because some
-    device transports cannot move unsigned arrays); unpack_host views
+    packed words are bit patterns, signed on the wire; unpack_host views
     them back as unsigned.
     """
     c = counters

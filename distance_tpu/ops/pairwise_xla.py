@@ -1,11 +1,9 @@
-"""Portable XLA pairwise-counter sweep (einsum / MXU path).
+"""Pairwise-counter GEMMs in plain JAX, compiled by XLA.
 
 Computes the per-pair integer counters for a block of sequence pairs as a
-set of GEMMs over the bilinear feature channels defined in features.py.
-This path runs on any backend (the TPU fast path materializes int8
-feature tensors and lets XLA drive the MXU's int8 pipeline — measured
-~1.5x the bf16 rate on v5e; the Pallas kernel in pairwise_pallas.py fuses
-feature extraction into the matmul).
+set of GEMMs over the bilinear feature channels defined in features.py,
+on any backend.  On a GPU, XLA hands the int8 contractions to cuBLAS or
+to its Triton GEMM emitter (chip_smoke.py phase 2 prints which).
 
 Exactness: features are in {-1, 0, 1} int8 and the contraction uses
 preferred_element_type=int32, so every counter is exact integer
@@ -28,8 +26,8 @@ def counters_xla(
 ) -> jnp.ndarray:
     """Counters for every (x, y) pair.
 
-    Feature channels are built with elementwise bit ops (VPU work, no
-    gathers) and contracted on the MXU, one GEMM per counter group.
+    Feature channels are built with elementwise bit ops (no gathers) and
+    contracted as int8 GEMMs, one per counter group.
 
     Args:
       x_codes: (m, L) uint8 encoded sequences (query side).
@@ -63,9 +61,8 @@ def contract_features(fx, gy, plan: CounterPlan, prefer=jnp.int32):
     """Counter GEMMs over prebuilt (R, m, L) / (R, n, L) feature tensors.
 
     Split out of counters_xla so the engine can cache feature tensors in
-    HBM (built once per matrix / once per strip) instead of
-    rematerializing them inside every block dispatch — measured 33% of
-    block time at production sweep tiles (scripts/featcache_spike.py).
+    device memory (built once per matrix / once per strip) instead of
+    rematerializing them inside every block dispatch.
     """
     if plan.mix_num is not None:
         # Shared-channel plan: one batched GEMM over sites gives the
@@ -85,7 +82,7 @@ def contract_features(fx, gy, plan: CounterPlan, prefer=jnp.int32):
     outs = []
     for name in plan.counters:
         lo, hi = plan.slice_of(name)
-        # contraction over (channel, site): one MXU GEMM per counter.
+        # contraction over (channel, site): one GEMM per counter.
         c = jax.lax.dot_general(
             fx[lo:hi],
             gy[lo:hi],

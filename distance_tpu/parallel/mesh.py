@@ -1,6 +1,6 @@
 """Device-mesh sharding for the pairwise counter sweep.
 
-TPU-native replacement for the reference's thread pool + MPMC channels
+Device-mesh replacement for the reference's thread pool + MPMC channels
 (/root/reference/src/lib.rs:269-365, SURVEY.md section 2 parallelism
 table):
 
@@ -11,8 +11,8 @@ table):
   queue degenerates to a static partition.
 * **Site parallelism** ("sp"): the L (sites) axis is sharded; every
   per-pair counter is additive over sites, so a ``psum`` over the site
-  axis reconstructs exact totals.  This is the sequence-parallel analog
-  and rides ICI with one small (G, m, n) collective per block.
+  axis reconstructs exact totals.  This is the sequence-parallel analog,
+  with one small (G, m, n) collective per block.
 
 Results are deterministic regardless of mesh shape: counters are exact
 integers, and emission order is fixed by the host-side sweep.
@@ -41,7 +41,7 @@ def make_mesh(n_devices: Optional[int] = None, sp: int = 1):
     return jax.sharding.Mesh(mesh_devices, ("dp", "sp"))
 
 
-def sharded_counters_fn(measure: str, mesh, backend: str = "xla"):
+def sharded_counters_fn(measure: str, mesh):
     """Build a jitted sharded counter function over ``mesh``.
 
     Signature: (x_strip (m, L) uint8 replicated, y_rows (n, L) uint8
@@ -56,11 +56,9 @@ def sharded_counters_fn(measure: str, mesh, backend: str = "xla"):
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
+    from distance_tpu.ops.pairwise_xla import counters_xla as kern
+
     plan = get_plan(measure)
-    if backend == "pallas":
-        from distance_tpu.ops.pairwise_pallas import counters_pallas as kern
-    else:
-        from distance_tpu.ops.pairwise_xla import counters_xla as kern
 
     def local(x, y):
         part = kern(x, y, plan)
@@ -76,20 +74,20 @@ def sharded_counters_fn(measure: str, mesh, backend: str = "xla"):
     return jax.jit(fn)
 
 
-def sharded_step(measure: str, mesh, backend: str = "xla"):
+def sharded_step(measure: str, mesh):
     """One full sharded 'step': counters + in-graph f32 distance estimate.
 
     Used by the multi-chip dry run: demonstrates the complete device-side
-    pipeline (feature build, MXU contraction, psum over site shards,
+    pipeline (feature build, int8 contraction, psum over site shards,
     cross-shard output layout) in a single jitted program.  The exact f64
-    finalization stays on host (TPUs have no native f64; parity requires
-    glibc libm) — this in-graph float path exists for monitoring and for
-    the dry-run's end-to-end compile check.
+    finalization stays on host (parity requires glibc libm) — this
+    in-graph float path exists for the dry-run's end-to-end compile
+    check.
     """
     import jax
     import jax.numpy as jnp
 
-    counters = sharded_counters_fn(measure, mesh, backend)
+    counters = sharded_counters_fn(measure, mesh)
     plan = get_plan(measure)
     idx = {name: k for k, name in enumerate(plan.counters)}
 

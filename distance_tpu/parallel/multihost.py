@@ -2,7 +2,7 @@
 
 The reference runs as one command that spawns all of its own workers
 (/root/reference/src/lib.rs:367-474, thread::spawn).  This module gives
-the TPU engine the same single-command UX across *processes and hosts*:
+the engine the same single-command UX across *processes and hosts*:
 
 * ``--launch N`` — spawn N local worker processes, each computing the
   k-th of N balanced shards (engine ``--shard k/N``), and merge their
@@ -12,8 +12,8 @@ the TPU engine the same single-command UX across *processes and hosts*:
   on a shared filesystem: every host derives its shard from its process
   index, writes ``<output>.partK`` plus a ``.done`` marker, and host 0
   merges once all markers exist.  With ``--coordinator`` the process
-  indices come from a ``jax.distributed`` rendezvous (the TPU-pod-native
-  startup); without it they come from the explicit flags.
+  indices come from a ``jax.distributed`` rendezvous; without it they
+  come from the explicit flags.
 
 Merging is mode-aware: load-mode (square/rectangle) shards are
 contiguous row-strip ranges, so parts concatenate byte-for-byte; stream
@@ -175,19 +175,57 @@ def _worker_argv(args, k: int, n: int, part_path: str) -> List[str]:
     return argv
 
 
+def visible_gpus() -> List[str]:
+    """Ids of the NVIDIA cards this process may use, found without
+    opening any: ``CUDA_VISIBLE_DEVICES`` when set, else the cards the
+    driver lists under /proc."""
+    env = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if env is not None:
+        return [d.strip() for d in env.split(",") if d.strip()]
+    try:
+        n = len(os.listdir("/proc/driver/nvidia/gpus"))
+    except OSError:
+        return []
+    return [str(k) for k in range(n)]
+
+
+def _worker_devices(args, n: int) -> Optional[List[str]]:
+    """One card per worker, or None when the workers run on no card.
+
+    A JAX process takes most of a card's memory when it first uses it,
+    so two workers must never share one.  A run on the numpy backend or
+    with ``JAX_PLATFORMS=cpu`` uses no card; otherwise N must not exceed
+    the visible cards.
+    """
+    plat = os.environ.get("JAX_PLATFORMS", "").split(",")[0].strip().lower()
+    if getattr(args, "backend", "auto") == "numpy" or plat == "cpu":
+        return None
+    cards = visible_gpus()
+    if not cards:
+        return None
+    if n > len(cards):
+        raise DistanceError(
+            f"--launch {n} needs one accelerator per worker, but only"
+            f" {len(cards)} are visible"
+        )
+    return cards[:n]
+
+
 def launch(args) -> int:
     """Run ``--launch N``: spawn N shard workers, merge, clean up.
 
-    Returns the process exit code.  Workers inherit stdio for stderr;
-    each writes ``<output>.partK`` (or a temp dir when printing to
-    stdout).  Load-mode parts are appended to the final output as soon
-    as their turn arrives (ReorderBuffer over shard indices), so the
-    merge overlaps the stragglers.
+    Returns the process exit code.  Worker k sees only card k
+    (``CUDA_VISIBLE_DEVICES``) when the run uses cards.  Workers inherit
+    stdio for stderr; each writes ``<output>.partK`` (or a temp dir when
+    printing to stdout).  Load-mode parts are appended to the final
+    output as soon as their turn arrives (ReorderBuffer over shard
+    indices), so the merge overlaps the stragglers.
     """
     n = args.launch
     if n < 1:
         raise DistanceError(f"--launch needs at least 1 process, got {n}")
     _check_no_stdin(args, "--launch")
+    cards = _worker_devices(args, n)
 
     import tempfile
 
@@ -212,8 +250,15 @@ def launch(args) -> int:
             except OSError:
                 pass
 
+    def worker_env(k: int):
+        if cards is None:
+            return None
+        return dict(os.environ, CUDA_VISIBLE_DEVICES=cards[k])
+
     procs = [
-        subprocess.Popen(_worker_argv(args, k, n, part_paths[k]))
+        subprocess.Popen(
+            _worker_argv(args, k, n, part_paths[k]), env=worker_env(k)
+        )
         for k in range(n)
     ]
 
@@ -374,14 +419,6 @@ def resolve_multihost(args) -> Optional[MultihostCtx]:
     if coordinator is not None:
         import jax
 
-        # Some environments force-register a platform via sitecustomize,
-        # overriding JAX_PLATFORMS; honor an explicit env request.
-        env_plat = os.environ.get("JAX_PLATFORMS")
-        if env_plat:
-            try:
-                jax.config.update("jax_platforms", env_plat)
-            except Exception:
-                pass
         jax.distributed.initialize(
             coordinator_address=coordinator,
             num_processes=num_hosts,

@@ -88,10 +88,10 @@ def one_config(seed: int) -> dict:
         tj=int(rng.choice(TILES)),
         batchsize=int(rng.integers(1, 7)),
         # tiny budgets force out-of-core / staged paths; huge = in-core
-        hbm=int(rng.choice([5_000, 30_000, 200_000, DEFAULTS["HBM_BUDGET_BYTES"]])),
+        hbm=int(rng.choice([5_000, 30_000, 200_000, engine.FALLBACK_BUDGET_BYTES])),
         hostbuf=int(rng.choice([4_000, 50_000, DEFAULTS["HOST_BUF_BUDGET"]])),
         staged_floor=int(rng.choice([2, 16, DEFAULTS["STAGED_ROWS_FLOOR"]])),
-        featcache=int(rng.choice([0, DEFAULTS["FEATCACHE_BUDGET"]])),
+        featcache=int(rng.choice([0, engine.FALLBACK_BUDGET_BYTES])),
         no_diffup=bool(rng.random() < 0.3),
         no_relpack=bool(rng.random() < 0.3),
         parse_workers=int(rng.choice([1, 3])),

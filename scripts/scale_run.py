@@ -126,9 +126,7 @@ def main():
             measure, "--backend", "xla", "--resume", "-o", out]
 
     if os.environ.get("SCALE_SKIP_KILL"):
-        # clean completion-to-completion measurement (kill+resume was
-        # validated by the recorded runs; killing a relay client leaves
-        # queued transfers poisoning the link for everyone)
+        # clean completion-to-completion measurement, no kill+resume
         size_at_kill, peak1 = 0, 0.0
     else:
         kill_after = float(os.environ.get("SCALE_KILL_AFTER_S", 300))

@@ -127,3 +127,14 @@ def test_licenses_broken_pipe_exits_zero():
     p.wait(timeout=60)
     assert p.returncode == 0
     assert b"Traceback" not in p.stderr.read()
+
+
+def test_backend_pallas_rejected():
+    """The Pallas backend is gone: argparse refuses the value (usage
+    error, exit 2) and names the choices that remain."""
+    r = run_cli(["--backend", "pallas"], input_data=b">a\nACGT\n")
+    assert r.returncode == 2
+    assert b"invalid choice: 'pallas'" in r.stderr
+    assert b"auto, numpy, xla)" in r.stderr
+    h = run_cli(["-h"])
+    assert b"pallas" not in h.stdout

@@ -1,15 +1,13 @@
 """Feature-cache engagement must respect the HBM budget, not just
 FEATCACHE_BUDGET.
 
-Regression for a real-chip OOM (2026-08-20): at 20000 x 29904, measure
-``n`` (14 channels), the g-cache tensor was 8.587 GB — just under the
-8.589 GB FEATCACHE_BUDGET default — so it engaged, and cache + codes +
-builder temporaries exhausted the 16 GB chip
-(``jax.errors.JaxRuntimeError: RESOURCE_EXHAUSTED`` at
-``engine.prepare``).  Engagement now requires
-``cache + codes <= HBM_BUDGET_BYTES`` as well, and the in-core gates
-compare the PREPARED footprint (padded codes + engaged cache) against
-the budget instead of raw source bytes.
+Regression for a device OOM: at 20000 x 29904, measure ``n``
+(14 channels), a g-cache tensor just under the featcache budget
+engaged, and cache + codes + builder temporaries exhausted device
+memory (``RESOURCE_EXHAUSTED`` at ``engine.prepare``).  Engagement now
+requires ``cache + codes <= HBM_BUDGET_BYTES`` as well, and the in-core
+gates compare the PREPARED footprint (padded codes + engaged cache)
+against the budget instead of raw source bytes.
 """
 
 import io
@@ -219,3 +217,70 @@ def test_sharded_gcache_accounts_tj_rounded_rows(monkeypatch):
         n, width, ti, ti, "raw", "xla", tj=tj
     )
     assert got == mat_b + need_rounded
+
+
+class _FakeDevice:
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.fixture
+def fresh_device_budget():
+    engine._device_budget.cache_clear()
+    yield
+    engine._device_budget.cache_clear()
+
+
+@pytest.mark.parametrize("stats,want", [
+    ({"bytes_limit": 60_000_000_000}, 30_000_000_000),
+    ({"bytes_limit": 12_000_000_000, "bytes_in_use": 5}, 6_000_000_000),
+    (None, engine.FALLBACK_BUDGET_BYTES),
+    ({"bytes_in_use": 5}, engine.FALLBACK_BUDGET_BYTES),
+])
+def test_budgets_derive_from_device_memory(monkeypatch, fresh_device_budget,
+                                           stats, want):
+    """Both budgets default to DEVICE_BUDGET_SHARE of the device's
+    ``bytes_limit``; a device that reports none gets the fallback."""
+    import jax
+
+    monkeypatch.setattr(jax, "devices", lambda: [_FakeDevice(stats)])
+    monkeypatch.setattr(engine, "HBM_BUDGET_BYTES", None)
+    monkeypatch.setattr(engine, "FEATCACHE_BUDGET", None)
+    assert engine._hbm_budget() == want
+    assert engine._featcache_budget() == want
+    # explicit values (env overrides, tests) win over the device
+    monkeypatch.setattr(engine, "HBM_BUDGET_BYTES", 1234)
+    monkeypatch.setattr(engine, "FEATCACHE_BUDGET", 0)
+    assert engine._hbm_budget() == 1234
+    assert engine._featcache_budget() == 0
+
+
+def test_budgets_fall_back_on_cpu(monkeypatch, fresh_device_budget):
+    import jax
+
+    assert jax.devices()[0].memory_stats() is None  # the CPU reports none
+    monkeypatch.setattr(engine, "HBM_BUDGET_BYTES", None)
+    monkeypatch.setattr(engine, "FEATCACHE_BUDGET", None)
+    assert engine._hbm_budget() == engine.FALLBACK_BUDGET_BYTES
+    assert engine._featcache_budget() == engine.FALLBACK_BUDGET_BYTES
+
+
+def test_budget_env_overrides_are_read_at_import():
+    import subprocess
+    import sys
+
+    code = (
+        "import distance_tpu.engine as e;"
+        "print(e.HBM_BUDGET_BYTES, e.FEATCACHE_BUDGET, e._hbm_budget())"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, check=True,
+        env=dict(__import__("os").environ, JAX_PLATFORMS="cpu",
+                 DISTANCE_TPU_HBM_BUDGET="5000",
+                 DISTANCE_TPU_FEATCACHE_BUDGET="0"),
+        timeout=120,
+    )
+    assert r.stdout.split() == [b"5000", b"0", b"5000"]

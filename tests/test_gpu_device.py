@@ -1,10 +1,15 @@
-"""Opt-in real-device tests (DISTANCE_TPU_TEST_DEVICE=1).
+"""Tests that need an NVIDIA GPU (marker ``gpu``).
 
-The default suite forces the CPU backend; these run the same exactness
-checks on whatever accelerator the ambient JAX config provides (the
-manual checks from round-1 verification, codified).  Run with:
+The default suite forces the CPU backend, so these skip there; the
+``gpu`` fixture decides inside the test session, never at import.  Run
+them on a machine with a card:
 
-    DISTANCE_TPU_TEST_DEVICE=1 python -m pytest tests/test_tpu_device.py -q
+    DISTANCE_TPU_TEST_DEVICE=1 XLA_PYTHON_CLIENT_PREALLOCATE=false \
+        python -m pytest tests/test_gpu_device.py -q -m gpu
+
+Without preallocation off, the test process reserves 75 % of the card
+and the CLI subprocess of test_cli_production_defaults_match_numpy gets
+only the rest.
 """
 
 import os
@@ -12,8 +17,21 @@ import os
 import numpy as np
 import pytest
 
-if not os.environ.get("DISTANCE_TPU_TEST_DEVICE"):
-    pytest.skip("device tests are opt-in", allow_module_level=True)
+from distance_tpu.measures import MEASURES
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def gpu():
+    import jax
+
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip(
+            "needs a GPU: run with DISTANCE_TPU_TEST_DEVICE=1 on a machine"
+            " with a card"
+        )
+    return jax.devices()[0]
 
 
 @pytest.fixture(scope="module")
@@ -26,8 +44,8 @@ def device_data():
     return x, y
 
 
-@pytest.mark.parametrize("measure", ["n_high", "raw", "k80", "tn93"])
-def test_xla_counters_exact_on_device(measure, device_data):
+@pytest.mark.parametrize("measure", MEASURES)
+def test_xla_counters_exact_on_device(measure, device_data, gpu):
     import jax.numpy as jnp
 
     from distance_tpu.engine import _counters_numpy
@@ -40,23 +58,7 @@ def test_xla_counters_exact_on_device(measure, device_data):
     assert np.array_equal(got, _counters_numpy(x, y, plan))
 
 
-@pytest.mark.parametrize("measure", ["k80", "tn93"])  # fast Mosaic compiles
-def test_pallas_counters_exact_on_device(measure, device_data):
-    import jax.numpy as jnp
-
-    from distance_tpu.engine import _counters_numpy
-    from distance_tpu.ops.features import get_plan
-    from distance_tpu.ops.pairwise_pallas import counters_pallas
-
-    x, y = device_data
-    plan = get_plan(measure)
-    got = np.asarray(
-        counters_pallas(jnp.asarray(x), jnp.asarray(y), plan, interpret=False)
-    )
-    assert np.array_equal(got, _counters_numpy(x, y, plan))
-
-
-def test_engine_device_backend_matches_numpy(tmp_path):
+def test_engine_device_backend_matches_numpy(tmp_path, gpu):
     from tests.conftest import make_fasta, random_seqs
     from tests.test_golden import expected_square, run_engine
 
@@ -67,14 +69,13 @@ def test_engine_device_backend_matches_numpy(tmp_path):
 
 
 @pytest.mark.parametrize("measure", ["jc69", "tn93"])
-def test_cli_production_defaults_match_numpy(tmp_path, measure):
+def test_cli_production_defaults_match_numpy(tmp_path, measure, gpu):
     """Full product path on the real device at DEFAULT tile/pack
     settings: `python -m distance_tpu.cli` subprocess (device backend)
     byte-compared against the numpy-backend CLI on a bench-shaped
     low-diversity alignment (shared ancestor + point mutations + N/gap
     sprinkle), exercising the rel-pack ladder and the ordered writer
-    end to end — the codified version of the round-2 on-chip smoke
-    (400x29904 k80/tn93 byte-identical)."""
+    end to end."""
     import subprocess
     import sys
 
@@ -99,10 +100,13 @@ def test_cli_production_defaults_match_numpy(tmp_path, measure):
             f.write(f">s{i}\n" + "".join(inv[b] for b in row) + "\n")
 
     def run_cli(backend, out):
+        # this test process already holds the card: the CLI allocates
+        # on demand from what is left
         subprocess.run(
             [sys.executable, "-m", "distance_tpu.cli", str(fp),
              "-m", measure, "--backend", backend, "-o", str(out)],
             check=True, timeout=1200,
+            env=dict(os.environ, XLA_PYTHON_CLIENT_PREALLOCATE="false"),
         )
 
     dev_out = tmp_path / "dev.tsv"

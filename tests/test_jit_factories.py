@@ -20,8 +20,8 @@ from distance_tpu import engine
 
 FACTORIES = [
     # (factory, args) — args must be representative hot-path keys
-    (engine._jit_block_fn, ("raw", "xla", 64, 64)),
-    (engine._jit_block_fn, ("tn93", "xla", 64, 64, "rel4", 29904)),
+    (engine._jit_block_fn, ("raw", 64, 64)),
+    (engine._jit_block_fn, ("tn93", 64, 64, "rel4", 29904)),
     (engine._jit_feat_builder, ("raw", "g")),
     (engine._jit_feat_builder, ("raw", "f", False)),
     (engine._jit_feat_builder, ("tn93", "g", False)),
@@ -30,7 +30,7 @@ FACTORIES = [
     (engine._jit_block_fn_feat, ("raw", 64, 64)),
     (engine._jit_block_fn_feat, ("k80", 64, 64, "rel4", 29904)),
     (engine._jit_stream_fn,
-     ("raw", "xla", 64, 8, 64, "none", 0, 128, None, False)),
+     ("raw", 64, 8, 64, "none", 0, 128, None, False)),
 ]
 
 

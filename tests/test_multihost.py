@@ -271,7 +271,7 @@ def test_launch_xla_virtual_mesh(tmp_path, fastas):
     o = tmp_path / "out.tsv"
     env = dict(
         os.environ,
-        DISTANCE_TPU_JAX_PLATFORM="cpu",
+        JAX_PLATFORMS="cpu",
         XLA_FLAGS="--xla_force_host_platform_device_count=4",
     )
     r = subprocess.run(
@@ -365,3 +365,81 @@ def test_unexpected_worker_exception_writes_failure_marker(
     content = marker.read_text().split("\n")
     assert content[0] == ctx.fp
     assert content[1].startswith("err RuntimeError boom")
+
+
+def _launch_args(a, o, n, backend):
+    from distance_tpu.cli import build_parser
+
+    return build_parser().parse_args(
+        [str(a), "-m", "raw", "--backend", backend, "--launch", str(n),
+         "-o", str(o)]
+    )
+
+
+class _FakeWorker:
+    """Stands in for a worker process: writes an empty part file and
+    exits 0, recording the environment it was given."""
+
+    envs = []
+
+    def __init__(self, argv, env=None):
+        self.envs.append(env)
+        with open(argv[argv.index("-o") + 1], "wb"):
+            pass
+
+    def poll(self):
+        return 0
+
+
+def test_launch_gives_each_worker_its_own_card(tmp_path, fastas,
+                                               monkeypatch):
+    import distance_tpu.parallel.multihost as mh
+
+    a, _b = write_inputs(tmp_path, fastas)
+    monkeypatch.setenv("JAX_PLATFORMS", "cuda")
+    monkeypatch.setattr(mh, "visible_gpus", lambda: ["0", "1", "2"])
+    monkeypatch.setattr(mh.subprocess, "Popen", _FakeWorker)
+    _FakeWorker.envs = []
+    assert mh.launch(_launch_args(a, tmp_path / "o.tsv", 3, "xla")) == 0
+    assert [e["CUDA_VISIBLE_DEVICES"] for e in _FakeWorker.envs] == [
+        "0", "1", "2"
+    ]
+
+
+@pytest.mark.parametrize("backend,platforms,refused", [
+    ("xla", "cuda", True),
+    ("auto", "", True),
+    ("numpy", "cuda", False),
+    ("xla", "cpu", False),
+])
+def test_launch_refuses_more_workers_than_cards(
+    tmp_path, fastas, monkeypatch, backend, platforms, refused
+):
+    """N > visible cards is refused for a device run before any worker
+    starts (and without the parent opening a card); runs that use no
+    card keep no such limit."""
+    import distance_tpu.parallel.multihost as mh
+    from distance_tpu.fastaio import DistanceError
+
+    a, _b = write_inputs(tmp_path, fastas)
+    monkeypatch.setenv("JAX_PLATFORMS", platforms)
+    monkeypatch.setattr(mh, "visible_gpus", lambda: ["0"])
+    monkeypatch.setattr(mh.subprocess, "Popen", _FakeWorker)
+    _FakeWorker.envs = []
+    args = _launch_args(a, tmp_path / "o.tsv", 2, backend)
+    if refused:
+        with pytest.raises(DistanceError, match="one accelerator per worker"):
+            mh.launch(args)
+        assert _FakeWorker.envs == []
+    else:
+        assert mh.launch(args) == 0
+        assert _FakeWorker.envs == [None, None]
+
+
+def test_visible_gpus_follows_cuda_visible_devices(monkeypatch):
+    import distance_tpu.parallel.multihost as mh
+
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "2, 3")
+    assert mh.visible_gpus() == ["2", "3"]
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "")
+    assert mh.visible_gpus() == []
